@@ -8,7 +8,7 @@ drives this with a PBS campaign (back_fstep/autorun.py sweeping endTime);
 here it is a :class:`~nekstab_next_tpu.campaign.Campaign` of artifact-gated
 stages: base flow (Newton seeded by SFD) -> G(t) sweep -> comparison table.
 
-Usage:  NEKSTAB_CPU=1 python examples/bfs_transient_growth.py \
+Usage:  python examples/bfs_transient_growth.py \
             [--preset quick|full] [--horizons 1.723 5.901 ...]
 
 quick: coarsened mesh + the two shortest Barkley horizons; expects G within
@@ -25,8 +25,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("NEKSTAB_CPU"):
-    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
@@ -65,7 +63,7 @@ PRESETS = {
 
 
 def build_case(P, dtype=None, solver=None, sponge=None):
-    """Shared case construction for the CPU campaign and the TPU tools."""
+    """Shared case construction for the campaign and the tools."""
     kw = dict(
         reynolds=500.0, order=P["order"], elems_upstream=P["eu"],
         elems_downstream=P["ed"], elems_y=P["ey"],
@@ -92,9 +90,8 @@ def main():
     P = PRESETS[args.preset]
     horizons = tuple(args.horizons) if args.horizons else P["horizons"]
 
-    # build_case honors step_dx/sponge, so the campaign and the TPU tools
-    # (tools/bfs_tpu_march.py, tools/bfs_tpu_tg.py) construct IDENTICAL
-    # cases (round-3 bug: main() built the legacy uniform mesh inline, so
+    # build_case honors step_dx/sponge, so the campaign and the tools
+    # (tools/bfs_cpu_probe.py) construct IDENTICAL cases (round-3 bug: main() built the legacy uniform mesh inline, so
     # the graded 'barkley' preset never actually ran).  The base-flow march
     # runs unsponged (steady state of pure NS); the TG stage turns the
     # sponge on with sponge_ref = base flow.  Schwarz pressure
@@ -137,10 +134,9 @@ def main():
         # The Re=500 2-D BFS is linearly stable (its interest is transient
         # growth: Barkley et al. 2008 — the 2-D flow stays stable to
         # Re ~ 3000), so the steady state is reached by plain DNS marching.
-        # Preferred path: the long march runs in f32 on the TPU chip
-        # (tools/bfs_tpu_march.py writes bfs_march.npz, ~10x the 2-core
-        # CPU), then an f64 continuation below.  Fallback: a
-        # BoostConv-accelerated CPU march (reference uparam 1.2,
+        # A march written earlier to bfs_march.npz (an f32 accelerator
+        # march of the same mesh) is continued in f64 below.  Otherwise: a
+        # BoostConv-accelerated march (reference uparam 1.2,
         # core/fixedp.f90:218-329).
         march = os.path.join(wd, "bfs_march.npz")
         u0 = None
@@ -155,7 +151,7 @@ def main():
             )
             if same_mesh:
                 u0 = jnp.asarray(mf.u)
-                print(f"[bfs] continuing from TPU march {march}", flush=True)
+                print(f"[bfs] continuing from march {march}", flush=True)
             else:
                 print(f"[bfs] ignoring {march}: wrong mesh "
                       f"(meta={mf.meta}, want {fp})", flush=True)

@@ -4,9 +4,9 @@ BASELINE.md ladder config 5: "3D cube roughness case: transient growth +
 multi-host sharded Krylov basis" (the reference drives its cube case with
 the PBS campaign /root/reference/examples/cube.py — Re around 206, Newton
 base flow gated at 1e-10, 200-dim Krylov).  Here the whole pipeline runs
-element-sharded over a ``jax.sharding.Mesh`` — on this host the 8 virtual
-CPU devices stand in for a multi-chip TPU slice; the code path (shard_map,
-psum collectives, sharded Krylov basis) is exactly the multi-chip one.
+element-sharded over a ``jax.sharding.Mesh`` — on a CPU host 8 virtual
+devices stand in for several GPUs; the code path (shard_map, psum
+collectives, sharded Krylov basis) is exactly the multi-device one.
 
 Stages (campaign.py artifact gating, reference check_next.py pattern):
 
@@ -18,7 +18,7 @@ Stages (campaign.py artifact gating, reference check_next.py pattern):
 3. gate: finite, positive, monotone-in-t gains + sharded/single-device
    cross-check on the shortest horizon.
 
-Usage: NEKSTAB_CPU=1 XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+Usage: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
            python examples/cube_transient_growth.py [--outdir cube_out]
 """
 
@@ -37,8 +37,6 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
 
 import jax
 
-if os.environ.get("NEKSTAB_CPU"):
-    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

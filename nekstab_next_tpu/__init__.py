@@ -1,9 +1,9 @@
-"""nekstab_next_tpu — TPU-native global linear stability / bifurcation analysis.
+"""nekstab_next_tpu — global linear stability / bifurcation analysis in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of nekStab_next
+A from-scratch JAX/XLA re-design of the capabilities of nekStab_next
 (reference: /root/reference, a Fortran-90 toolbox on Nek5000 + LightKrylov).
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
 * The spectral-element incompressible Navier-Stokes time-stepper is a jitted
   ``lax.scan``; one matrix-free "matvec" (the exponential propagator
@@ -36,11 +36,12 @@ import jax as _jax
 if not _os.environ.get("NEKSTAB_X32"):
     _jax.config.update("jax_enable_x64", True)
 
-# TPU matmuls default to bfloat16 inputs (DEFAULT precision), which corrupts
-# the f32 compute path: the tensor-product derivative operators lose ~3
-# decimal digits and the elliptic CG can stall below bf16 resolution.  The
-# SEM operators are tiny matmuls — full-f32 (3-pass) precision costs little
-# and is required for solver tolerances of 1e-5..1e-6.
+# At DEFAULT precision XLA:GPU may run f32 matmuls and einsums in TF32 (10
+# mantissa bits, ~3 decimal digits), which corrupts the f32 compute path:
+# the tensor-product derivative operators lose ~3 digits and the elliptic CG
+# stalls near 1e-3.  The SEM operators are tiny, bandwidth-bound matmuls —
+# full f32 costs little and is required for solver tolerances of 1e-5..1e-6.
+# chip_smoke.py checks for the leak: f32-vs-f64 drift would read ~1e-2.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

@@ -13,7 +13,7 @@ Rebuilds of the reference's core/fixedp.f90:
 * TDF (:2-121) — time-delayed feedback ``-chi (u(t) - u(t-T))`` with a device
   ring buffer of one-period snapshots; stabilizes periodic orbits.
 
-TPU shape: the per-step work runs as jitted chunks of ``chunk`` steps
+Device shape: the per-step work runs as jitted chunks of ``chunk`` steps
 (lax.scan); the host loop only checks residuals between chunks and decides
 termination (compile-once / run-many)."""
 

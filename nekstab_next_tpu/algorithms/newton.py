@@ -12,7 +12,7 @@ Rebuild of the reference's core/newton_krylov.f90:
 * dynamic forcing of the GMRES tolerance from the current residual
   (``spec_tole``, :408-435).
 
-TPU shape: the nonlinear map and the tangent map are two jit-compiled
+Device shape: the nonlinear map and the tangent map are two jit-compiled
 functions taking (q, dt) — no recompilation across Newton iterations even
 though the base flow and the UPO period change every step."""
 

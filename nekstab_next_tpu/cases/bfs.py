@@ -54,7 +54,7 @@ class BackwardFacingStepCase:
     dt: Optional[float] = None
     target_cfl: float = 0.5
     solver: SolverConfig = SolverConfig()
-    dtype: object = jnp.float64  # SEM arithmetic dtype (f32 on TPU)
+    dtype: object = jnp.float64  # SEM arithmetic dtype (f32: the single-precision path)
     step_dx: Optional[float] = None  # first-cell width at the step corner;
     # None -> uniform spacing (coarse presets).  The reference fixture grades
     # to 0.1 there (examples/back_fstep/transient_growth/bfs.re2).

@@ -44,7 +44,7 @@ class CylinderCase:
     target_cfl: float = 0.5
     solver: SolverConfig = SolverConfig()
     dtype: Optional[object] = None  # None -> SEM default (f64); pass
-    # jnp.float32 for the TPU-native single-precision compute path (pair
+    # jnp.float32 for the single-precision compute path (pair
     # with f32-reachable solver tolerances, e.g. 1e-5/1e-6)
     mixed_precision: bool = False
 

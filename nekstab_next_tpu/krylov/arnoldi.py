@@ -4,8 +4,8 @@ Rebuild of the reference's ``arnoldi_factorization`` / ``update_hessenberg_matri
 (core/krylov_decomposition.f90:2-189): CGS orthogonalization followed by one
 full re-orthogonalization pass (the reference notes plain CGS is unstable,
 krylov_decomposition.f90:170).  Classical (not modified) GS is chosen
-deliberately: all k dot products batch into one reduction — on TPU that is
-one fused psum instead of k sequential ones.
+deliberately: all k dot products batch into one reduction — one fused psum
+instead of k sequential ones.
 
 The orthogonalization is a single jitted function over the *preallocated*
 basis with masked columns, so one compiled executable serves every iteration

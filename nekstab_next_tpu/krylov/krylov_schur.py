@@ -9,7 +9,7 @@ reference ``select_eigenvalues``, eigensolvers.f90:688-756).
 
 Host orchestrates (k_dim-sized dense work on LAPACK, replicated); every
 device-side operation is a compiled call: the matvec (one propagator scan),
-the batched orthogonalization, and the basis rotation Q @ Z (one MXU matmul —
+the batched orthogonalization, and the basis rotation Q @ Z (one matrix-unit matmul —
 the reference's second hot spot, eigensolvers.f90:433-446)."""
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ Two paths:
   core/linear_stab.f90:82-119).  Kept as a cross-check.
 
 Both store the bases as stacked device pytrees (:class:`Basis`) — restarts
-rotate them with single batched matmuls on the MXU."""
+rotate them with single batched matmuls on the matrix units."""
 
 from __future__ import annotations
 

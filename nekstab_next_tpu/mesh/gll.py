@@ -1,6 +1,6 @@
 """Gauss-Lobatto-Legendre quadrature and spectral differentiation.
 
-TPU-native equivalent of Nek5000's ``speclib`` (ZWGLL/DGLL), which the
+JAX-native equivalent of Nek5000's ``speclib`` (ZWGLL/DGLL), which the
 reference consumes through the SEM solver (SURVEY.md section 2.2: GLL points,
 mass matrix ``bm1``, derivative ops ``gradm1``).  Everything here is built
 host-side in float64 numpy once per run; the resulting small dense matrices

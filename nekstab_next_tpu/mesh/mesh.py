@@ -1,14 +1,14 @@
 """Spectral-element mesh: nodal coordinates, connectivity, metrics, masks.
 
-TPU-native equivalent of the Nek5000 mesh/geometry layer the reference sits on
+JAX-native equivalent of the Nek5000 mesh/geometry layer the reference sits on
 (SURVEY.md section 2.2: ``.re2`` mesh, GLL points, mass matrix ``bm1``, masks
 ``v1mask...``, geometry ``xm1/ym1/zm1``).  Everything is precomputed host-side
 in numpy; the solver closes over jnp copies of the small dense factors.
 
-Data layout (TPU-first): every field is ``(nelem, n, n)`` with the element
+Data layout (accelerator-first): every field is ``(nelem, n, n)`` with the element
 axis first — that is the axis sharded over the device mesh — and the two
 tensor-product node axes last, so per-element operators are batched dense
-matmuls that XLA maps onto the MXU.  Index convention: ``u[e, i, j]`` with
+matmuls that XLA maps onto the matrix units.  Index convention: ``u[e, i, j]`` with
 ``i`` the xi-direction node index and ``j`` the eta-direction index.
 """
 

@@ -2,7 +2,7 @@
 
 Lets users bring the reference's own case meshes (e.g.
 examples/cylinder/1cyl.re2: 1996 elements, curved cylinder wall) into the
-framework for cross-validation — the TPU-native replacement for Nek's mesh
+framework for cross-validation — the JAX-native replacement for Nek's mesh
 ingestion that the reference inherits (SURVEY.md section 2.2 "mesh /
 discretization setup").
 
@@ -328,7 +328,7 @@ def _curved_hex_coords(corners: np.ndarray,
     ``curves``: Nek edge records (0-based edge number -> ('C'|'m', params));
     ``sphere``: 's' face records (mesh3 face index -> (center, radius)).
     Faces touched by an 's' record (and their boundary edges) are projected
-    radially onto the sphere — the TPU-native equivalent of Nek's genxyz.f
+    radially onto the sphere — the JAX-native equivalent of Nek's genxyz.f
     sphsrf/arcsrf machinery."""
     n = len(s)
     E = {}

@@ -2,14 +2,16 @@
 
 The reference's compute core leans on native libraries around the Fortran
 solver (gslib gather-scatter in C, LAPACK — SURVEY.md section 2.2); here the
-device compute path is XLA/Pallas, and the native layer owns the host-side
+device compute path is XLA, and the native layer owns the host-side
 *setup* work that is irregular/pointer-chasing and ill-suited to numpy:
 
 * ``global_numbering`` — gslib-setup equivalent: dedup quantized node
   coordinates into a global numbering + multiplicity (native/gs_setup.cpp).
 
-Compilation happens lazily on first use (g++ -O3 -shared), cached next to
-the source; every entry point has a pure-numpy fallback so the package works
+The library is built from ``gs_setup.cpp`` on first use (g++ -O3 -shared,
+for the generic target of the host's architecture, so one build runs on any
+CPU of that architecture) into ``_gs_setup.so`` next to the source, which git
+ignores; every entry point has a pure-numpy fallback so the package works
 without a toolchain (set ``NEKSTAB_NO_NATIVE=1`` to force the fallback).
 """
 
@@ -47,7 +49,7 @@ def _load() -> Optional[ctypes.CDLL]:
                 os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
             ):
                 subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                    ["g++", "-O3", "-shared", "-fPIC",
                      "-std=c++17", _SRC, "-o", _LIB + ".tmp"],
                     check=True, capture_output=True,
                 )

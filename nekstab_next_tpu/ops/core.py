@@ -1,6 +1,6 @@
 """Core spectral-element operators on ``(nelem, n, n)`` fields.
 
-TPU-native replacements for the Nek5000 operator layer the reference uses
+JAX-native replacements for the Nek5000 operator layer the reference uses
 (SURVEY.md section 2.2): tensor-product derivatives (``gradm1``), the
 gather-scatter direct-stiffness sum (gslib ``dssum/dsavg``), mass-weighted
 global inner products (``glsc3`` + MPI all-reduce), weak Laplacian/Helmholtz
@@ -9,8 +9,8 @@ applies, and dealiased convection (``convect_new`` with the 3/2 rule).
 Design:
 
 * Per-element operators are batched dense contractions (``einsum`` over the
-  element axis) — XLA tiles them onto the MXU; a Pallas fused-derivative
-  kernel can replace the einsums later without touching callers.
+  element axis) that XLA fuses; a fused element kernel can replace the
+  einsums later without touching callers.
 * ``dssum`` is a segment-sum into the global-node vector followed by a
   gather.  Under SPMD (``shard_map`` over the element axis) the global-node
   vector is psum-reduced across devices — the XLA-collective equivalent of
@@ -36,32 +36,6 @@ from ..mesh.gll import (
     lagrange_interp_matrix,
 )
 from ..mesh.mesh import Mesh2D
-
-
-import os as _os
-
-# The padded-gather dssum avoids scatter-adds but triggers pathologically
-# slow compiles on the remote-TPU backend (>15 min vs 40 s at identical
-# scale), so it is opt-in; the scatter (segment_sum) form is the default.
-_GATHER_DSSUM = bool(_os.environ.get("NEKSTAB_GATHER_DSSUM"))
-
-
-def gather_table(gid_flat: np.ndarray, nglobal: int) -> np.ndarray:
-    """Per-global-node padded list of contributing local flat indices.
-
-    Lets ``dssum`` run as two gathers + a small reduction instead of a
-    scatter-add — scatters serialize on TPU, gathers vectorize.  Pad entries
-    point at an appended zero slot (index ``gid_flat.size``)."""
-    order_idx = np.argsort(gid_flat, kind="stable")
-    sorted_gid = gid_flat[order_idx]
-    starts = np.searchsorted(sorted_gid, np.arange(nglobal))
-    counts = np.diff(np.append(starts, gid_flat.size))
-    mmax = int(counts.max())
-    tbl = np.full((nglobal, mmax), gid_flat.size, dtype=np.int64)
-    for k in range(mmax):
-        sel = counts > k
-        tbl[sel, k] = order_idx[starts[sel] + k]
-    return tbl
 
 
 class SEM:
@@ -105,11 +79,6 @@ class SEM:
         np.add.at(bmg, mesh.gid.reshape(-1), mesh.bm.reshape(-1))
         self.binv_assembled = f(1.0 / bmg[mesh.gid])
         self.inv_mult = f(1.0 / mesh.mult)
-
-        # gather-based dssum table (see gather_table / dssum)
-        self._gs_table = jnp.asarray(
-            gather_table(mesh.gid.reshape(-1), mesh.nglobal), dtype=jnp.int32
-        )
 
         # dealiasing (3/2 over-integration) operators
         nd = int(math.ceil(3 * n / 2))
@@ -214,6 +183,25 @@ class SEM:
         v.vblock_inv = {}
         return v
 
+    def astype(self, dtype) -> "SEM":
+        """Shallow copy of this context with every floating array (geometry,
+        operators, built preconditioners) cast to ``dtype``; integer index
+        arrays and host metadata are shared.  The mixed-precision stepper
+        runs its inner solves on an f32 copy of the f64 context."""
+
+        def cast(a):
+            if (isinstance(a, (jax.Array, np.ndarray))
+                    and jnp.issubdtype(a.dtype, jnp.floating)):
+                return jnp.asarray(a, dtype)
+            return a
+
+        v = object.__new__(type(self))
+        v.__dict__.update(
+            {k: jax.tree.map(cast, a) for k, a in self.__dict__.items()}
+        )
+        v.dtype = dtype
+        return v
+
     # ------------------------------------------------------------------
     # gather-scatter
     # ------------------------------------------------------------------
@@ -226,17 +214,9 @@ class SEM:
 
         Accepts trailing component axes: (nelem, n, n, ...)."""
         flat = u.reshape((self.gid.shape[0],) + u.shape[3:])
-        if self.axis_name is not None or not _GATHER_DSSUM:
-            g = jax.ops.segment_sum(flat, self.gid, num_segments=self.nglobal)
-            if self.axis_name is not None:
-                g = jax.lax.psum(g, self.axis_name)
-        else:
-            # gather-based sum: contributions per global node via the padded
-            # index table (scatters serialize on TPU; gathers don't)
-            ext = jnp.concatenate(
-                [flat, jnp.zeros((1,) + flat.shape[1:], flat.dtype)], axis=0
-            )
-            g = ext[self._gs_table].sum(axis=1)
+        g = jax.ops.segment_sum(flat, self.gid, num_segments=self.nglobal)
+        if self.axis_name is not None:
+            g = jax.lax.psum(g, self.axis_name)
         return g[self.gid].reshape(u.shape)
 
     @staticmethod
@@ -404,8 +384,8 @@ class SEM:
     def pressure_precond_schwarz(self, r: jnp.ndarray) -> jnp.ndarray:
         """Three-level overlapping-Schwarz preconditioner for E = D M^-1 D^T:
         exact element+face-neighbor patch solves + P0 element-constant
-        coarse + Q1 vertex coarse (ops/schwarz.py) — the TPU-native
-        equivalent of Nek5000's overlapping Schwarz + XXT hierarchy
+        coarse + Q1 vertex coarse (ops/schwarz.py) — the equivalent of
+        Nek5000's overlapping Schwarz + XXT hierarchy
         (SURVEY.md section 2.2).  Measured round 4: 20/53/19 CG iterations
         to 1e-5 on quick-BFS/Barkley-BFS/cylinder vs 232/1779/86 for the
         box-FDM two-level."""

@@ -1,7 +1,7 @@
 """3-D spectral-element operators on ``(nelem, n, n, n)`` fields.
 
 Same design as the 2-D :class:`~nekstab_next_tpu.ops.core.SEM` (batched dense
-tensor-product contractions on the MXU, segment-sum gather-scatter, psum
+tensor-product contractions on the matrix units, segment-sum gather-scatter, psum
 reductions under SPMD) extended to hexahedral elements — the reference's
 ``if3d`` capability (SURVEY.md section 2.2).  The API matches SEM so the
 Navier-Stokes stepper is dimension-agnostic: ``ndim``, ``grad`` (tuple),
@@ -24,6 +24,7 @@ from ..mesh.gll import (
     lagrange_interp_matrix,
 )
 from ..mesh.mesh3 import Mesh3D
+from .core import SEM
 
 
 class SEM3:
@@ -55,12 +56,6 @@ class SEM3:
         np.add.at(bmg, mesh.gid.reshape(-1), mesh.bm.reshape(-1))
         self.binv_assembled = f(1.0 / bmg[mesh.gid])
         self.inv_mult = f(1.0 / mesh.mult)
-
-        from .core import gather_table
-
-        self._gs_table = jnp.asarray(
-            gather_table(mesh.gid.reshape(-1), mesh.nglobal), dtype=jnp.int32
-        )
 
         # PnPn-2 pressure space (see ops/core.py): P_{N-2} on Gauss, L2
         npr = n - 2
@@ -138,6 +133,8 @@ class SEM3:
             d["pblock_inv"] = self.pblock_inv
         return d
 
+    astype = SEM.astype
+
     def shard_view(self, elem_arrays: dict, axis_name: str) -> "SEM3":
         v = object.__new__(SEM3)
         v.__dict__.update(self.__dict__)
@@ -155,18 +152,10 @@ class SEM3:
 
     # ------------------------------------------------------------------
     def dssum(self, u: jnp.ndarray) -> jnp.ndarray:
-        from .core import _GATHER_DSSUM
-
         flat = u.reshape((self.gid.shape[0],) + u.shape[4:])
-        if self.axis_name is not None or not _GATHER_DSSUM:
-            g = jax.ops.segment_sum(flat, self.gid, num_segments=self.nglobal)
-            if self.axis_name is not None:
-                g = jax.lax.psum(g, self.axis_name)
-        else:
-            ext = jnp.concatenate(
-                [flat, jnp.zeros((1,) + flat.shape[1:], flat.dtype)], axis=0
-            )
-            g = ext[self._gs_table].sum(axis=1)
+        g = jax.ops.segment_sum(flat, self.gid, num_segments=self.nglobal)
+        if self.axis_name is not None:
+            g = jax.lax.psum(g, self.axis_name)
         return g[self.gid].reshape(u.shape)
 
     @staticmethod

@@ -14,8 +14,8 @@ continuous-and-unmasked subspace:
 
 ``A`` is Euclid-SPD, and on ``range(P)`` the system ``A x = P r_local`` is
 exactly the assembled Galerkin system (the diagonal scaling introduced by the
-averaging cancels between both sides).  This is the TPU-native equivalent of
-Nek5000's masked Helmholtz solves with ``vmult``-weighted CG dots."""
+averaging cancels between both sides).  This is the equivalent of Nek5000's
+masked Helmholtz solves with ``vmult``-weighted CG dots."""
 
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ def elliptic_solve(
     lanes: Optional[tuple] = None,
     vblocks: Optional[jnp.ndarray] = None,
     fixed_iters: bool = False,
-    fused_solve=None,
+    inner_solve=None,
     ir_cycles: int = 0,
 ):
     """Solve the assembled system  (P local_op P) x = P rhs_local  by PCG
@@ -63,7 +63,9 @@ def elliptic_solve(
                      instead of Jacobi (additive Schwarz wrapped in P)
     ``lanes``      : optional lanes-layout bundle (ops/lanes.py
                      ``velocity_bundle``) — the CG iteration runs in the
-                     TPU ``(n^2, ndim*nelem)`` layout (see cg_solve)
+                     ``(n^2, ndim*nelem)`` layout (see cg_solve)
+    ``inner_solve``: approximate subspace solve for iterative refinement
+                     (``ir_cycles`` cycles; see cg_solve)
     """
     P = make_projector(sem, mask)
 
@@ -88,8 +90,7 @@ def elliptic_solve(
     if vblocks is not None:
         # exact element-block inverse of the assembled operator
         # (ops/schwarz.py build_velocity_blocks): one batched matmul per
-        # component, no gather/scatter — the measured-cheapest strong
-        # preconditioner on TPU (round-4 flagship sweep)
+        # component, no gather/scatter
         from .schwarz import velocity_block_apply
 
         def M_sub(r):
@@ -126,5 +127,5 @@ def elliptic_solve(
     return cg_solve(
         A, rhs, tol=tol, maxiter=maxiter, dot=dot, project=project,
         inner_op=(A_sub, P, M_sub), lanes=lanes, fixed_iters=fixed_iters,
-        fused_solve=fused_solve, ir_cycles=ir_cycles,
+        inner_solve=inner_solve, ir_cycles=ir_cycles,
     )

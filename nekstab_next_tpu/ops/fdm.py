@@ -1,6 +1,6 @@
 """Tensor-product fast-diagonalization (FDM) element preconditioner.
 
-TPU-native replacement for the overlapping-Schwarz/FDM local solves inside
+JAX-native replacement for the overlapping-Schwarz/FDM local solves inside
 Nek5000's pressure/velocity preconditioners (the reference inherits these
 through ``nek_advance``; SURVEY.md section 2.2 lists the Helmholtz/Poisson
 solves among the external compute core to rebuild).  Each deformed spectral
@@ -13,7 +13,7 @@ h1*K + h2*B separates:
 With the generalized eigendecomposition  A1 S = B1 S Lam,  S^T B1 S = I  of
 the 1-D stiffness/mass pair on [-1,1], the box operator diagonalizes in the
 S-basis, so its inverse is two (three in 3-D) batched n-by-n matmuls per side
-plus an elementwise divide — pure MXU work, fused by XLA across the element
+plus an elementwise divide — pure matmul work, fused by XLA across the element
 batch.  Used as an additive-Schwarz block solve wrapped in the continuity
 projector (ops/elliptic.py), it replaces Jacobi and cuts CG iteration counts
 several-fold.
@@ -63,7 +63,7 @@ def element_half_lengths_2d(mesh) -> np.ndarray:
 def coarse_setup(gid: np.ndarray, g_metrics, D: np.ndarray, z: np.ndarray,
                  mask: np.ndarray):
     """Q1 vertex coarse level for the pressure Poisson two-level
-    preconditioner — the TPU-native stand-in for Nek5000's XXT coarse solve
+    preconditioner — the JAX-native stand-in for Nek5000's XXT coarse solve
     (SURVEY.md section 2.2 lists the XXT coarse solver among the external
     compute core).
 

@@ -1,19 +1,18 @@
-"""Lanes-layout ``(n^2, nelem)`` elliptic inner solves for TPU.
+"""Lanes-layout ``(n^2, nelem)`` elliptic inner solves.
 
-Motivation (BASELINE.md round-3 roofline): fields stored ``(nelem, n, n)``
-tile their trailing ``(n, n) = (7, 7)`` block into the TPU's ``(8, 128)``
-vector registers — a ~20x physical-traffic blowup — and the elliptic CG
+Motivation: fields stored ``(nelem, n, n)`` have a tiny trailing
+``(n, n) = (7, 7)`` block; a vector unit that tiles the two minor
+dimensions in wide registers pads it many times over, and the elliptic CG
 iterations (~45 per time step, the hot loop of every matvec of every
-analysis, SURVEY.md section 3.2) pay it on every operand.
+analysis, SURVEY.md section 3.2) pay that on every operand.  Whether the
+layout pays on the GPU is unmeasured (ROADMAP C2 proposes deleting it).
 
 This module re-expresses the two inner solves (velocity Helmholtz,
 PnPn-2 pressure Poisson) on arrays transposed to ``(n^2, nelem)`` with the
 velocity components folded into the lane axis ``(n^2, ndim*nelem)``: the
-element axis fills the 128-wide lane dimension exactly, every
-tensor-product contraction becomes one ``(n^2, n^2)`` Kronecker matmul
-against thousands of lanes (the FusedHelmholtz layout of
-ops/pallas_kernels.py, here in plain XLA so the whole CG iteration
-fuses), and per-iteration HBM traffic drops to the logical bytes.
+element axis is the minor dimension, every tensor-product contraction
+becomes one ``(n^2, n^2)`` Kronecker matmul against thousands of element
+columns, in plain XLA so the whole CG iteration fuses.
 
 The standard-layout operators remain the differentiation anchors inside
 ``lax.custom_linear_solve`` (ops/cg.py); the lanes path only replaces the
@@ -33,12 +32,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# All lanes matmuls pin full-f32 MXU precision: the TPU 'default' matmul
-# precision feeds bf16 into the MXU (~7e-3 relative per op), which the
-# standard layout's small VPU einsums never see — with bf16 the lanes path
-# loses 3 digits per iteration and the 50-step tangent matvec drifts to
-# ~8e-2 (measured round 3).  HIGHEST costs extra MXU passes on shapes this
-# small and bandwidth-bound: unmeasurable.
+# All lanes matmuls pin full-f32 precision: a reduced-precision matmul
+# input (bf16, or TF32 on the GPU) loses ~3 digits per CG iteration and the
+# 50-step tangent matvec drifts to ~8e-2.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -116,7 +112,7 @@ class LanesOps:
         # exactly into (a) pairwise exchange of edge-interior face nodes —
         # a static row slice plus one lane-axis neighbor GATHER per
         # (dst-face, src-face, flip) bucket (round 3 used one-hot (E, E)
-        # matmuls here: O(E^2) MXU work that made the path 3.7x slower) —
+        # matmuls here: O(E^2) matmul work that made the path 3.7x slower) —
         # and (b) a vertex assembly over the 4E corner values via a compact
         # segment-sum + gather.  Falls back to segment_sum when the mesh is
         # not 2-conforming.
@@ -213,9 +209,9 @@ class LanesOps:
         fx = []
         for (fd, fs, flip), pairs in sorted(buckets.items()):
             # neighbor map as a lane-axis GATHER, not a one-hot (E, E)
-            # matmul: the matmul form measured O(E^2) MXU work per bucket
+            # matmul: the matmul form measured O(E^2) matmul work per bucket
             # (~4.5 GFLOP apiece at E=768) and made the whole lanes path
-            # 3.7x slower than standard (round-3 lanes_probe.log); the
+            # 3.7x slower than standard (measured in round 3); the
             # gather is the logical O(E) data movement.  idx[ed] = es, or
             # E (a zero pad slot) for boundary elements.
             idx = np.full(E, E, dtype=np.int64)
@@ -247,8 +243,7 @@ class LanesOps:
     def _dssum_exchange(self, x: jnp.ndarray) -> jnp.ndarray:
         """dssum on (n2, C*E) lanes fields via face-exchange matmuls.
 
-        Basic slices + dynamic_update_slice only — no scatter ops reach
-        the TPU."""
+        Basic slices + dynamic_update_slice only — no scatter ops."""
         n, E = self.n, self.nelem
         ex = self._exchange
         C = x.shape[1] // E
@@ -391,8 +386,7 @@ class LanesOps:
         meshes appear (<~25k pressure dofs) an exact dense inverse is cheap
         to build (N operator applies, vmapped) and makes CG converge in 1-2
         iterations — the full-rank analogue of Nek5000's XXT direct coarse
-        solve (SURVEY.md section 2.2).  One (N, N) matmul per apply: pure
-        MXU/HBM-bandwidth work, the TPU-native trade."""
+        solve (SURVEY.md section 2.2).  One (N, N) matmul per apply."""
         if getattr(self, "_einv", None) is not None:
             return self._einv
         N = self.npr2 * self.nelem

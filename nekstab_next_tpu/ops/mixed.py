@@ -1,26 +1,25 @@
-"""Mixed-precision elliptic solves: f32 inner CG + f64 iterative refinement.
+"""Mixed-precision elliptic solves on the GLL-grid scheme: f32 inner CG + f64
+iterative refinement.
 
-TPU MXU/VPU datapaths are f32/bf16; f64 is software-emulated (~10-20x slower).
 The reference's 1e-8..1e-10 solver tolerances (examples/cylinder/1cyl.par:8,18)
 demand f64 *accuracy*, not f64 *arithmetic*: classical iterative refinement
 gets there with almost all FLOPs in f32 —
 
     repeat:  r  = b - A x            (f64, exact residual)
-             dx = CG_f32(A32, r)     (cheap inner solve, Pallas fused apply)
+             dx = CG_f32(A32, r)     (cheap inner solve)
              x  = x + dx             (f64 accumulate)
 
 Each refinement cycle multiplies the error by the inner solve's relative
 accuracy (~1e-5..1e-6), so 2-3 cycles reach 1e-10.  The inner operator is the
-same assembled projected operator that ``ops/elliptic.py`` builds, with the
-local Helmholtz apply replaced by the fused Pallas kernel
-(ops/pallas_kernels.py) and the FDM/coarse preconditioners re-instantiated in
-f32.
+same assembled projected operator that ``ops/elliptic.py`` builds, applied on
+an f32 copy of the SEM (``SEM.astype``) with the FDM/coarse preconditioners.
 
-This is the SURVEY.md section 7 "f64 throughput on TPU" answer; it is opt-in
-(``NavierStokes(..., mixed_precision=True)``) so the default path stays
-bit-stable f64.  Under ``lax.custom_linear_solve`` the refined solve is still
-exactly transposable, so the linearized/adjoint propagators keep their exact
-discrete-adjoint property.
+This is the legacy route of ``NavierStokes(..., mixed_precision=True)``: it
+serves sharded runs and the non-PnPn-2 pressure schemes; single-device PnPn-2
+runs refine around f32 solves of the full scheme instead
+(stepper/navier_stokes.py).  Under ``lax.custom_linear_solve`` the refined
+solve is still exactly transposable, so the linearized/adjoint propagators
+keep their exact discrete-adjoint property.
 """
 
 from __future__ import annotations
@@ -32,93 +31,45 @@ import jax.numpy as jnp
 
 from .cg import pcg
 from .elliptic import make_projector
-from .pallas_kernels import FusedHelmholtz
 
 _f32 = jnp.float32
 _f64 = jnp.float64
 
 
 class MixedPrecision:
-    """f32 solve context for one SEM: fused Pallas Helmholtz apply + f32
-    copies of the FDM and Q1-coarse preconditioner constants."""
+    """f32 solve context for one SEM: an f32 copy of its operators and of
+    the FDM and Q1-coarse preconditioner constants."""
 
-    def __init__(self, sem, block_e: int = 256, inner_tol: float = 3e-6,
-                 cycles: int = 3, interpret: Optional[bool] = None):
+    def __init__(self, sem, inner_tol: float = 3e-6, cycles: int = 3):
         self.sem = sem
-        self.fused = FusedHelmholtz(sem, block_e=block_e, interpret=interpret)
+        self.sem32 = sem.astype(_f32)
         self.inner_tol = float(inner_tol)
         self.cycles = int(cycles)
         self.ndim = sem.ndim
-        f = lambda a: a.astype(_f32)
-        self.S32 = f(sem.fdm_S)
-        self.lam32 = f(sem.fdm_lam)
-        self.len32 = f(sem.fdm_len)
-        self.inv_mult32 = f(sem.inv_mult)
-        self.Jc32 = f(sem.pc_Jc)
-        self.Acinv32 = f(sem.pc_Acinv)
 
     # -- local applies ---------------------------------------------------
     def helmholtz32(self, u: jnp.ndarray, h1, h2) -> jnp.ndarray:
-        """Fused f32 local Helmholtz; accepts a trailing component axis."""
-        nd = self.ndim
-        if u.ndim == nd + 2:
-            return jnp.stack(
-                [self.fused.apply(u[..., d], h1, h2) for d in range(u.shape[-1])],
-                axis=-1,
-            )
-        return self.fused.apply(u, h1, h2)
-
-    def fdm32(self, r: jnp.ndarray, h1, h2) -> jnp.ndarray:
-        """f32 twin of ``SEM.fdm_apply`` / ``SEM3.fdm_apply``."""
-        S, lam = self.S32, self.lam32
+        """f32 local Helmholtz; accepts a trailing component axis."""
+        s32 = self.sem32
         h1 = jnp.asarray(h1, _f32)
         h2 = jnp.asarray(h2, _f32)
-        nd = self.ndim
-        if nd == 2:
-            a = self.len32[:, 0][:, None, None]
-            b = self.len32[:, 1][:, None, None]
-            denom = h1 * ((b / a) * lam[:, None] + (a / b) * lam[None, :]) + h2 * (a * b)
-            ref = h1 * (b / a + a / b) * lam[1] + h2 * (a * b)
-            inv = jnp.where(denom > 1e-6 * ref, 1.0 / jnp.maximum(denom, 1e-30), 1.0 / ref)
-            inv = inv.reshape(inv.shape + (1,) * (r.ndim - 3))
-            t = jnp.einsum("ia,jb,eij...->eab...", S, S, r)
-            return jnp.einsum("ia,jb,eab...->eij...", S, S, t * inv)
-        a = self.len32[:, 0][:, None, None, None]
-        b = self.len32[:, 1][:, None, None, None]
-        c = self.len32[:, 2][:, None, None, None]
-        lr = lam[:, None, None]
-        ls = lam[None, :, None]
-        lt = lam[None, None, :]
-        denom = h1 * ((b * c / a) * lr + (a * c / b) * ls + (a * b / c) * lt) + h2 * (a * b * c)
-        ref = h1 * (b * c / a + a * c / b + a * b / c) * lam[1] + h2 * (a * b * c)
-        inv = jnp.where(denom > 1e-6 * ref, 1.0 / jnp.maximum(denom, 1e-30), 1.0 / ref)
-        inv = inv.reshape(inv.shape + (1,) * (r.ndim - 4))
-        t = jnp.einsum("ia,jb,kc,eijk...->eabc...", S, S, S, r)
-        return jnp.einsum("ia,jb,kc,eabc...->eijk...", S, S, S, t * inv)
+        if u.ndim == self.ndim + 2:
+            return jnp.stack(
+                [s32.helmholtz_local(u[..., d], h1, h2)
+                 for d in range(u.shape[-1])],
+                axis=-1,
+            )
+        return s32.helmholtz_local(u, h1, h2)
 
-    def coarse32(self, r: jnp.ndarray) -> jnp.ndarray:
-        """f32 twin of ``SEM.coarse_apply_pressure``."""
-        sem = self.sem
-        sub = "cij,eij->ec" if self.ndim == 2 else "cijk,eijk->ec"
-        rc_e = jnp.einsum(sub, self.Jc32, r)
-        rc = jax.ops.segment_sum(
-            rc_e.reshape(-1), sem.pc_cid.reshape(-1), num_segments=sem.pc_nc
+    def fdm32(self, r: jnp.ndarray, h1, h2) -> jnp.ndarray:
+        """f32 ``fdm_apply``."""
+        return self.sem32.fdm_apply(
+            r, jnp.asarray(h1, _f32), jnp.asarray(h2, _f32)
         )
-        if sem.axis_name is not None:
-            rc = jax.lax.psum(rc, sem.axis_name)
-        xc = self.Acinv32 @ rc
-        back = "cij,ec->eij" if self.ndim == 2 else "cijk,ec->eijk"
-        return jnp.einsum(back, self.Jc32, xc[sem.pc_cid])
 
     # -- assembled operator / projector in f32 ----------------------------
     def assembled32(self, mask: jnp.ndarray, h1, h2):
-        sem = self.sem
-        mask32 = mask.astype(_f32)
-        bc = sem._bc
-
-        def P32(x):
-            y = mask32 * x
-            return mask32 * (sem.dssum(y) * bc(self.inv_mult32, y))
+        P32 = make_projector(self.sem32, mask.astype(_f32))
 
         def A32(x):
             Px = P32(x)
@@ -153,7 +104,7 @@ class MixedPrecision:
                 Pr = P32(r)
                 z = self.fdm32(Pr, h1, h2)
                 if coarse:
-                    z = z + self.coarse32(Pr)
+                    z = z + self.sem32.coarse_apply_pressure(Pr)
                 return P32(z) + (r - Pr)
         else:
             precond32 = None

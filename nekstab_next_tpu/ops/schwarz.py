@@ -6,7 +6,7 @@ cylinder O-mesh) but it collapses on graded/stretched meshes (measured 1229
 iterations to 1e-5 on the Barkley BFS fixture, round 3).  The reference
 inherits Nek5000's overlapping-Schwarz + XXT hierarchy here (SURVEY.md
 section 2.2, Fischer 1997 / Lottes & Fischer 2005); this module is the
-TPU-native equivalent for the *discontinuous* P_{N-2} pressure space:
+JAX-native equivalent for the *discontinuous* P_{N-2} pressure space:
 
 * The diagonal blocks  E_ee  of the pressure operator E = D M^-1 D^T are
   extracted EXACTLY — not approximated by a box — with a graph-colored set
@@ -15,7 +15,7 @@ TPU-native equivalent for the *discontinuous* P_{N-2} pressure space:
   basis fields yields one block column for every element of that color
   simultaneously.  Cost: ncolors x npr^d applies, host-side, once per mesh.
 * The blocks are inverted on the host (npr^d <= 64 per element in 2-D) and
-  applied as ONE batched (nelem, nloc, nloc) matmul — pure MXU work, less
+  applied as ONE batched (nelem, nloc, nloc) matmul — pure matmul work, less
   per-apply arithmetic than the FDM Gauss<->GLL lift it replaces.
 * Two-level: additively combined with the existing Q1 vertex coarse solve
   (ops/fdm.py coarse_setup — the XXT equivalent), which carries the global
@@ -222,7 +222,7 @@ def build_pressure_patches(sem, E_op: Optional[Callable] = None,
 
     Patch of element e = e + its face neighbors; the patch matrix is the
     exact restriction of E (assembled from :func:`extract_sparse_E`) and is
-    inverted host-side.  This is the TPU-native analogue of Nek5000's
+    inverted host-side.  This is the JAX-native analogue of Nek5000's
     overlapping additive Schwarz pressure smoother (Fischer 1997): on
     stretched/graded meshes the overlap carries the inter-element edge
     modes that non-overlapping blocks miss (measured round 4: 309 -> ~x
@@ -320,8 +320,8 @@ def build_velocity_blocks(sem, h1: float, h2: float) -> jnp.ndarray:
     operator couples only node-sharing neighbors, so one batched apply per
     (color, local-node) yields every diagonal block column.  The apply is
     one batched (nelem, n^d, n^d) matmul per component — no gather/scatter
-    (round-4 sweep: apply cost, not iteration count, decides the capped-CG
-    wall clock on TPU).
+    (round-4 sweep: apply cost, not iteration count, decided the capped-CG
+    wall clock).
 
     Returns (ndim, nelem, nloc, nloc) block inverses.  ``h2`` is the
     g0/dt of the final BDF stage; the two ramp steps see a mismatched (up

@@ -2,13 +2,13 @@
 
 The reference's single distribution axis is Nek5000's element partition over
 MPI ranks, with gather-scatter face exchange and all-reduce inner products
-(SURVEY.md section 2.3).  TPU-native mapping:
+(SURVEY.md section 2.3).  JAX mapping:
 
 * elements are sharded over a 1-D ``jax.sharding.Mesh`` axis ('e');
 * the whole computation (step / propagator / tangent operator) runs under
   ``shard_map``; inside it every SEM reduction carries ``axis_name='e'``, so
   the gather-scatter's cross-device sum and all dot products lower to XLA
-  ``psum`` collectives riding the ICI;
+  ``psum`` collectives over the device interconnect;
 * geometry/mask arrays are sharded along the element axis and passed as
   arguments; the small dense operators (GLL derivative matrices) replicate.
 

@@ -1,6 +1,6 @@
 """Post-processing & diagnostics layer.
 
-TPU-native rebuild of the reference's L4 postprocessing (core/postproc.f90,
+JAX-native rebuild of the reference's L4 postprocessing (core/postproc.f90,
 core/sensitivity.f90): vortex-criterion library, running statistics,
 perturbation kinetic-energy budgets, and the sensitivity/control maps
 (wavemaker, base-flow sensitivity, steady-force sensitivity, delta forcing).

@@ -6,7 +6,7 @@ computed per element with the tensor-product derivative kernels and made C0
 by dsavg (the reference's ``comp_gije`` + ``dsavg``).  In 2-D the flow embeds
 in 3-D with w = d/dz = 0, so S^2 + Omega^2 has one zero eigenvalue and the
 criteria reduce to closed forms on the 2x2 block — no eigensolver needed
-(good for TPU: pure elementwise VPU math)."""
+(pure elementwise math)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Synthetic free-stream-turbulence (FST) inflow.
 
-TPU-native equivalent of the reference's FST subsystem (core/fst.f90:4-386):
+JAX-native equivalent of the reference's FST subsystem (core/fst.f90:4-386):
 a time-harmonic superposition of inflow velocity modes whose amplitudes
 follow a von Karman energy spectrum, imposed as a time-dependent Dirichlet
 boundary condition at the inlet.
@@ -22,7 +22,7 @@ Reference behaviour reproduced (fst.f90):
            + uIm_j * (-sin(+w t + b z_j) - sin(-w t + b z_j))]``
   (fst.f90:200-224).
 
-Design differences (TPU-first): everything static (mode table, spline
+Design differences (accelerator-first): everything static (mode table, spline
 interpolation, inlet registry) is precomputed host-side with numpy; the
 time-dependent evaluation is a single batched einsum over modes inside jit,
 so the BC field is re-generated every step at negligible cost and the whole

@@ -31,9 +31,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import SolverConfig
-from ..ops.cg import cg_solve
+from ..ops.cg import cg_solve, pcg
 from ..ops.core import SEM
-from ..ops.elliptic import elliptic_solve
+from ..ops.elliptic import elliptic_solve, make_projector
 from .state import FlowState, initial_state
 
 # BDFk / EXTk coefficients, index k-1 (padded to length 3)
@@ -47,6 +47,31 @@ _EXT = {
     2: [2.0, -1.0, 0.0],
     3: [3.0, -3.0, 1.0],
 }
+
+
+def _pressure_operator(s, u_like) -> Callable:
+    """E = D M^-1 D^T on the P_{N-2} Gauss pressure space of ``s``: the
+    weak divergence D, the masked inverse mass M^-1 and the exact transpose
+    D^T (``u_like`` gives the velocity shape and dtype)."""
+    grad_wt = jax.linear_transpose(s.div_to_p, u_like)
+    vmask = s.vmask
+    binv = s.binv_assembled[..., None]
+
+    def E(q):
+        g = grad_wt(q)[0]
+        return s.div_to_p(vmask * (binv * s.dssum(vmask * g)))
+
+    return E
+
+
+def _pressure_precond(s, name: str) -> Callable:
+    """The PnPn-2 pressure preconditioner ``name`` of ``s``, where built
+    ('schwarz' patches do not exist under shard_map: 'block' serves)."""
+    if name == "schwarz" and s.pschwarz is not None:
+        return s.pressure_precond_schwarz
+    if name in ("block", "schwarz") and s.pblock_inv is not None:
+        return s.pressure_precond_block
+    return s.pressure_precond_pnpn2
 
 
 class NavierStokes:
@@ -157,77 +182,30 @@ class NavierStokes:
             )
 
         # opt-in mixed precision (f64 accuracy from f32 arithmetic).  Two
-        # generations:
-        # * fused-IR (round 5, preferred): f64 state on the SAME PnPn-2
-        #   scheme as the f32 path, with both inner solves replaced by
-        #   iterative refinement around the fused Pallas f32 kernels
-        #   (ops/fused_cg.py; refinement loop in ops/cg.py) — requires the
-        #   kernels' scope (2-D, single-device, shift-decomposable mesh);
+        # routes:
+        # * refinement (2-D, single-device, PnPn-2): f64 state on the SAME
+        #   scheme as the f64 path, with both inner solves replaced by
+        #   iterative refinement (ops/cg.py) around f32 subspace PCG on an
+        #   f32 copy of the SEM (``_sem32``);
         # * legacy (ops/mixed.py): GLL-grid approximate projection
-        #   ('laplacian') with standard-layout f32 inner CG — the fallback
-        #   everywhere else (3-D, sharded, irregular meshes).
+        #   ('laplacian') with f32 inner CG — sharded runs and the other
+        #   pressure schemes.
         self.mixed = None
-        self._mixed_ir = False
+        self._sem32 = None
         if mixed_precision:
-            can_ir = (
-                sem.ndim == 2 and sem.axis_name is None
-                and solver.pressure_operator == "pnpn2"
-                and solver.fused_solves
-            )
-            if can_ir:
-                from ..ops.fused_cg import get_exchange
-
-                can_ir = get_exchange(sem) is not None
-            if can_ir:
-                self._mixed_ir = True
+            if (sem.ndim == 2 and sem.axis_name is None
+                    and solver.pressure_operator == "pnpn2"):
+                # cast after the preconditioner setup above, so the copy
+                # carries the built blocks/patches
+                self._sem32 = s.astype(jnp.float32)
             else:
                 from ..ops.mixed import MixedPrecision
 
                 self.mixed = MixedPrecision(s)
         self._ir_cycles = int(solver.mixed_ir_cycles)
         self._scheme = (
-            "laplacian" if (mixed_precision and not self._mixed_ir)
-            else solver.pressure_operator
+            "laplacian" if self.mixed is not None else solver.pressure_operator
         )
-
-        # opt-in fused Pallas whole-solve CG kernels (ops/fused_cg.py):
-        # 2-D single-device f32 on shift-decomposable meshes
-        self._fused_v = None
-        self._fused_p = None
-        if (solver.fused_solves and sem.ndim == 2 and sem.axis_name is None
-                and self.mixed is None
-                and (sem.dtype == jnp.float32 or self._mixed_ir)):
-            from ..ops.fused_cg import (
-                FusedHelmholtzCG, FusedPressureCG, get_exchange,
-            )
-
-            if get_exchange(sem) is not None:
-                # fused-IR inner solves iterate to the f32-reachable 3e-6
-                # and refinement supplies the remaining digits; caps
-                # bounded (the production mixed configs carry the
-                # reference's huge safety maxiters)
-                if self._mixed_ir:
-                    v_tol, v_cap = 3e-6, min(solver.velocity_maxiter, 100)
-                    p_tol, p_cap = 3e-6, min(solver.pressure_maxiter, 150)
-                else:
-                    v_tol, v_cap = solver.velocity_tol, solver.velocity_maxiter
-                    p_tol, p_cap = solver.pressure_tol, solver.pressure_maxiter
-                self._fused_v = FusedHelmholtzCG(
-                    sem, sem.vmask, maxiter=v_cap, tol=v_tol,
-                )
-                if solver.pressure_operator == "pnpn2" and solver.fused_pressure:
-                    sem.setup_pressure_blocks()
-                    self._fused_p = FusedPressureCG(
-                        sem, maxiter=p_cap, tol=p_tol,
-                        project_mean=not sem.has_pressure_dirichlet,
-                    )
-        if self._mixed_ir and (self._fused_v is None or self._fused_p is None):
-            # defensive: kernel construction failed — fall back to legacy
-            from ..ops.mixed import MixedPrecision
-
-            self._mixed_ir = False
-            self.mixed = MixedPrecision(s)
-            self._scheme = "laplacian"
 
         # opt-in lanes-layout CG iterations (ops/lanes.py): 2-D single-device
         # only — the sharded path's per-element arrays are shard_map tracers
@@ -457,10 +435,9 @@ class NavierStokes:
             if (self.lanes is not None and self.solver.fdm_precond
                     and self._vblocks is None):
                 lanes_v = self.lanes.velocity_bundle(self.nu, h2)
-            fused_v = None
-            if self._fused_v is not None:
-                fv = self._fused_v
-                fused_v = lambda r: fv.solve(r, self.nu, h2)
+            inner_v = None
+            if self._sem32 is not None:
+                inner_v = self._velocity_inner32(h2)
             w = x0v + elliptic_solve(
                 s,
                 helm_local,
@@ -473,8 +450,8 @@ class NavierStokes:
                 lanes=lanes_v,
                 vblocks=self._vblocks,
                 fixed_iters=self.solver.cg_fixed_iters,
-                fused_solve=fused_v,
-                ir_cycles=self._ir_cycles if self._mixed_ir else 0,
+                inner_solve=inner_v,
+                ir_cycles=self._ir_cycles,
             )
         ustar = w + u_bc
 
@@ -493,8 +470,7 @@ class NavierStokes:
             # E = D M^-1 D^T on the discontinuous Gauss pressure space: SPD,
             # spurious-mode free, Euclid-symmetric by transpose construction
             # — plain CG, no continuity projector or mask needed.
-            def E_op(q):
-                return div_w(Minv_free(grad_w(q)))
+            E_op = _pressure_operator(s, u0)
 
             x0p = dp0 if (dp0 is not None and self.solver.warm_start) else None
             project = None
@@ -521,28 +497,21 @@ class NavierStokes:
                     direct=self.solver.pressure_direct,
                     precond=self.solver.pressure_precond,
                 )
-            if (self.solver.pressure_precond == "schwarz"
-                    and s.pschwarz is not None):
-                precond_p = s.pressure_precond_schwarz
-            elif (self.solver.pressure_precond in ("block", "schwarz")
-                    and s.pblock_inv is not None):
-                precond_p = s.pressure_precond_block
-            else:
-                precond_p = s.pressure_precond_pnpn2
+            inner_p = None
+            if self._sem32 is not None:
+                inner_p = self._pressure_inner32(u0)
             dp = cg_solve(
                 E_op,
                 rhs_p,
-                precond=precond_p,
+                precond=_pressure_precond(s, self.solver.pressure_precond),
                 tol=self.solver.pressure_tol,
                 maxiter=self.solver.pressure_maxiter,
                 dot=lambda a, c: s._reduce(jnp.sum(a * c)),
                 project=project,
                 lanes=lanes_p,
                 fixed_iters=self.solver.cg_fixed_iters,
-                fused_solve=(
-                    self._fused_p.solve if self._fused_p is not None else None
-                ),
-                ir_cycles=self._ir_cycles if self._mixed_ir else 0,
+                inner_solve=inner_p,
+                ir_cycles=self._ir_cycles,
             )
             if x0p is not None:
                 dp = dp + x0p
@@ -628,6 +597,52 @@ class NavierStokes:
         if dp0 is not None:
             out = out + (dp,)
         return out
+
+    # ------------------------------------------------------------------
+    # mixed-precision inner solves (refinement route; see __init__)
+    def _f32_pcg(self, op, precond, maxiter: int) -> Callable:
+        """f32 PCG to the f32-reachable relative residual 3e-6 (dots
+        accumulated in f64); takes and returns fields in the state dtype.
+        Refinement in ops/cg.py supplies the remaining digits, so the caps
+        stay bounded even under the reference's large safety maxiters."""
+
+        def dot(a, b):
+            return jnp.sum(a * b, dtype=jnp.float64).astype(jnp.float32)
+
+        def solve(r):
+            x = pcg(op, r.astype(jnp.float32), precond=precond, tol=3e-6,
+                    maxiter=maxiter, dot=dot)
+            return x.astype(r.dtype)
+
+        return solve
+
+    def _velocity_inner32(self, h2) -> Callable:
+        """f32 subspace PCG of the assembled velocity Helmholtz system
+        P (nu K + h2 B) P with the FDM preconditioner."""
+        s32 = self._sem32
+        h2 = jnp.asarray(h2, jnp.float32)
+        P = make_projector(s32, s32.vmask)
+
+        def A(w):
+            return P(jnp.stack(
+                [s32.helmholtz_local(w[..., d], self.nu, h2)
+                 for d in range(w.shape[-1])], axis=-1,
+            ))
+
+        def M(r):
+            return P(s32.fdm_apply(r, self.nu, h2))
+
+        return self._f32_pcg(A, M, min(self.solver.velocity_maxiter, 100))
+
+    def _pressure_inner32(self, u_like) -> Callable:
+        """f32 PCG of the PnPn-2 pressure system E = D M^-1 D^T with the
+        f64 path's preconditioner choice."""
+        s32 = self._sem32
+        E = _pressure_operator(
+            s32, jax.ShapeDtypeStruct(u_like.shape, jnp.float32)
+        )
+        M = _pressure_precond(s32, self.solver.pressure_precond)
+        return self._f32_pcg(E, M, min(self.solver.pressure_maxiter, 150))
 
     # ------------------------------------------------------------------
     def advance(self, state: FlowState, nsteps: int, dt=None) -> FlowState:

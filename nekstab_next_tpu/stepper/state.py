@@ -1,6 +1,6 @@
 """Flow state pytree.
 
-The TPU-native replacement for Nek5000's velocity/pressure commons plus lag
+The JAX-native replacement for Nek5000's velocity/pressure commons plus lag
 arrays (``vx/vy/pr``, ``vxlag``, ``abx1/abx2`` ...), which the reference
 manipulates through its ``krylov_vector`` type (core/krylov_subspace.f90:12-17).
 All arrays carry the element axis first — the sharded axis under SPMD.

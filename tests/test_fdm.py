@@ -1,6 +1,6 @@
 """Fast-diagonalization (FDM) element preconditioner + Q1 coarse level.
 
-TPU-native stand-in for the overlapping-Schwarz/FDM preconditioners and the
+JAX-native stand-in for the overlapping-Schwarz/FDM preconditioners and the
 XXT coarse solve the reference inherits from Nek5000 (SURVEY.md section 2.2).
 Checks: symmetry/positivity of the preconditioner (a CG requirement), and an
 iteration-count win over Jacobi on the deformed cylinder mesh for both the

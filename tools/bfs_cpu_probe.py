@@ -1,7 +1,7 @@
 """Short f64 CPU march on a BFS preset with robust solver settings —
-distinguishes 'the scheme/mesh/IC is unstable' from 'the TPU f32 capped-CG
-config is unstable' (round-3: the graded 'barkley' mesh diverged on TPU
-within ~1000 steps, undiagnosed — VERDICT Weak #2).
+distinguishes 'the scheme/mesh/IC is unstable' from 'the f32 capped-CG
+config is unstable' (the graded 'barkley' mesh diverged in f32 within ~1000
+steps, undiagnosed — VERDICT Weak #2).
 
 Usage: python tools/bfs_cpu_probe.py [--preset barkley] [--steps 3000]
 """

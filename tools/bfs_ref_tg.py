@@ -22,10 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from nekstab_next_tpu.utils.compile_cache import enable_compile_cache
 
 REF = "/root/reference/examples/back_fstep/transient_growth"
 
@@ -40,6 +37,7 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

@@ -16,18 +16,13 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp
 import numpy as np
 
 from nekstab_next_tpu.cases.cylinder import CylinderCase
 from nekstab_next_tpu.config import SolverConfig
 from nekstab_next_tpu.stepper.linearized import LinearizedOperator
+from nekstab_next_tpu.utils.compile_cache import enable_compile_cache
 
 NSTEPS = 50
 REPS = 3
@@ -44,8 +39,8 @@ CONFIGS = {
     "fdm-lanes-30-15": ("fdm", True, 30, 15),
     # 'block' = exact element blocks + Q1: no gather/scatter in the apply
     # (one batched (E, nloc, nloc) matmul) — ~41 iters to 1e-5 on this
-    # mesh vs 86 (fdm) / 19 (schwarz, whose patch gather+segment-sum
-    # costs ~3-4x per iteration on TPU)
+    # mesh vs 86 (fdm) / 19 (schwarz, whose patch gather + segment-sum
+    # makes each iteration dearer)
     "blk-30-15": ("block", False, 30, 15),
     "blk-20-15": ("block", False, 20, 15),
     "blk-15-12": ("block", False, 15, 12),
@@ -58,14 +53,8 @@ CONFIGS = {
     "blkv-15-8": ("block", False, 15, 8),
     "blkv-12-8": ("block", False, 12, 8),
     # '-fix' = cg_fixed_iters: exact-cap fori_loop CG, no While trips, no
-    # exit/live dots (round-5; SolverConfig.cg_fixed_iters)
-    # '-fus' = fused Pallas whole-solve velocity CG (SolverConfig.fused_solves)
-    "blkfus-12-10": ("block", False, 12, 10, {"fused_solves": True}),
-    "blkfus-16-10": ("block", False, 16, 10, {"fused_solves": True}),
-    "blkfus-20-12": ("block", False, 20, 12, {"fused_solves": True}),
-    "blkfus-24-12": ("block", False, 24, 12, {"fused_solves": True}),
-    "blkfus-32-16": ("block", False, 32, 16, {"fused_solves": True}),
-    "blkfus-12-15": ("block", False, 12, 15, {"fused_solves": True}),
+    # exit/live dots (SolverConfig.cg_fixed_iters)
+    "blk-16-10": ("block", False, 16, 10),
     "blk-12-10-fix": ("block", False, 12, 10, {"cg_fixed_iters": True}),
     "blk-15-12-fix": ("block", False, 15, 12, {"cg_fixed_iters": True}),
     "blkv-12-8-fix": ("block", False, 12, 8, {"cg_fixed_iters": True}),
@@ -96,6 +85,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", default=",".join(CONFIGS))
     args = ap.parse_args()
+    enable_compile_cache()
 
     ref_out = None
     for label in args.configs.split(","):
